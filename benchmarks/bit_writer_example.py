@@ -11,7 +11,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import time
 
-from dmmt_jpeg_encoder_tpu.bitstream.bitwriter import BitWriter
+from dmmt_jpeg_encoder.bitstream.bitwriter import BitWriter
 
 
 def main() -> int:

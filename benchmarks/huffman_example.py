@@ -14,10 +14,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import numpy as np
 
-from dmmt_jpeg_encoder_tpu.bitstream.bitwriter import BitWriter
-from dmmt_jpeg_encoder_tpu.huffman.canonical import canonical_codes, flat_code_arrays
-from dmmt_jpeg_encoder_tpu.huffman.decoder import HuffmanDecoder
-from dmmt_jpeg_encoder_tpu.huffman.spec import code_lengths_from_histogram
+from dmmt_jpeg_encoder.bitstream.bitwriter import BitWriter
+from dmmt_jpeg_encoder.huffman.canonical import canonical_codes, flat_code_arrays
+from dmmt_jpeg_encoder.huffman.decoder import HuffmanDecoder
+from dmmt_jpeg_encoder.huffman.spec import code_lengths_from_histogram
 
 
 def main() -> int:

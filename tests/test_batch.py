@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from dmmt_jpeg_encoder_tpu import ChromaSubsamplingPreset, EncoderConfig, encode_array
-from dmmt_jpeg_encoder_tpu.encoder import _encode_batch_fused, encode_batch
+from dmmt_jpeg_encoder import ChromaSubsamplingPreset, EncoderConfig, encode_array
+from dmmt_jpeg_encoder.encoder import _encode_batch_fused, encode_batch
 
 
 def _images(rng, n, h=40, w=56):
@@ -50,8 +50,8 @@ def test_encode_batch_mixed_shapes_falls_back(rng):
 def test_sharded_batch_pipelined_bit_exact():
     """encode_batch with num_shards>1 pipelines sharded dispatches and
     must produce exactly the per-image encode_array bytes."""
-    from dmmt_jpeg_encoder_tpu.config import ChromaSubsamplingPreset, EncoderConfig
-    from dmmt_jpeg_encoder_tpu.encoder import encode_array, encode_batch
+    from dmmt_jpeg_encoder.config import ChromaSubsamplingPreset, EncoderConfig
+    from dmmt_jpeg_encoder.encoder import encode_array, encode_batch
 
     rng = np.random.default_rng(11)
     images = [
@@ -73,26 +73,3 @@ def test_sharded_batch_pipelined_bit_exact():
         for px in images
     ]
     assert batched == plain
-
-
-def test_encode_batch_chunked_uploads_bit_exact(rng, monkeypatch):
-    """Forced upload chunking (DMMT_UPLOAD_CHUNK_MB small enough that
-    every image splits into several device_put slices sealed by an
-    on-device concatenate, encoder.py round-5 job 304) must not change
-    a byte. Uses the pipelined per-image path (DMMT_SLAB=0) — the path
-    that owns the chunking logic."""
-    monkeypatch.setenv("DMMT_SLAB", "0")
-    imgs = [
-        np.ascontiguousarray(
-            rng.integers(0, 256, (96, 64, 3), dtype=np.uint8)
-        )
-        for _ in range(3)
-    ]
-    cfg = EncoderConfig(scan_backend="device")
-    singles = [encode_array(px, 255, cfg) for px in imgs]
-    # 96*64*3 = 18 KB per image; 0.005 MB chunks -> ~4 slices each
-    monkeypatch.setenv("DMMT_UPLOAD_CHUNK_MB", "0.005")
-    assert encode_batch(imgs, 255, cfg) == singles
-    # chunking disabled (whole-image uploads) stays identical too
-    monkeypatch.setenv("DMMT_UPLOAD_CHUNK_MB", "0")
-    assert encode_batch(imgs, 255, cfg) == singles

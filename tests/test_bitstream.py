@@ -4,11 +4,11 @@ binary_stream.rs:99-159, segment_marker_injector.rs, encoder.rs:264-404)."""
 import numpy as np
 import pytest
 
-from dmmt_jpeg_encoder_tpu.bitstream.bitwriter import BitWriter, byte_stuff
-from dmmt_jpeg_encoder_tpu.bitstream.packer import encode_scan
-from dmmt_jpeg_encoder_tpu.huffman.canonical import flat_code_arrays
-from dmmt_jpeg_encoder_tpu.huffman.spec import code_lengths_from_histogram
-from dmmt_jpeg_encoder_tpu.utils.native import load_native
+from dmmt_jpeg_encoder.bitstream.bitwriter import BitWriter, byte_stuff
+from dmmt_jpeg_encoder.bitstream.packer import encode_scan
+from dmmt_jpeg_encoder.huffman.canonical import flat_code_arrays
+from dmmt_jpeg_encoder.huffman.spec import code_lengths_from_histogram
+from dmmt_jpeg_encoder.utils.native import load_native
 
 
 def test_bitwriter_msb_first():
@@ -59,7 +59,7 @@ def test_byte_stuffing():
 
 def _tables_for(blocks_list):
     """Build valid per-image tables covering every symbol in the blocks."""
-    from dmmt_jpeg_encoder_tpu.entropy.categorize import symbol_histograms
+    from dmmt_jpeg_encoder.entropy.categorize import symbol_histograms
     import jax.numpy as jnp
 
     dc = np.zeros(16, np.int64)
@@ -113,8 +113,8 @@ def test_packer_stuffs_and_pads(rng):
 
 def test_packer_decodes_back(rng):
     """Scan bytes decode back to the original symbol stream."""
-    from dmmt_jpeg_encoder_tpu.huffman.decoder import BitReader, HuffmanDecoder
-    from dmmt_jpeg_encoder_tpu.entropy.categorize import symbol_histograms
+    from dmmt_jpeg_encoder.huffman.decoder import BitReader, HuffmanDecoder
+    from dmmt_jpeg_encoder.entropy.categorize import symbol_histograms
     import jax.numpy as jnp
 
     luma = _random_blocks(rng, 8)

@@ -1,54 +1,44 @@
-"""Tests for the Pallas capability probe (utils/capability.py).
-
-VERDICT r2 #7: hot-path gating must be a real capability probe, not a
-backend-name string compare, and the fallback must not be silent on
-non-CPU backends.
-"""
+"""Backend selection (utils/capability.py) and the env-keyed program
+cache."""
 
 import jax
 
-from dmmt_jpeg_encoder_tpu.utils import capability
+from dmmt_jpeg_encoder.utils import capability
 
 
-def test_probe_is_false_on_cpu_backend():
+def test_on_accelerator_false_on_cpu_backend():
     assert jax.default_backend() == "cpu"  # conftest forces this
-    assert capability._probe_lowering() is False
+    assert capability.on_accelerator() is False
 
 
-def test_interpret_env_wins(monkeypatch):
-    monkeypatch.setenv("DMMT_PALLAS_INTERPRET", "1")
-    assert capability.pallas_capable() is True
-    monkeypatch.delenv("DMMT_PALLAS_INTERPRET")
-    assert capability.pallas_capable() is False
+def test_auto_scan_backend_is_host_on_cpu():
+    assert capability.resolve_scan_backend("auto") == "host"
 
 
-def test_force_override(monkeypatch):
-    monkeypatch.delenv("DMMT_PALLAS_INTERPRET", raising=False)
-    monkeypatch.setenv("DMMT_FORCE_PALLAS", "1")
-    assert capability.pallas_capable() is True
-    monkeypatch.setenv("DMMT_FORCE_PALLAS", "0")
-    assert capability.pallas_capable() is False
+def test_explicit_scan_backend_passes_through():
+    assert capability.resolve_scan_backend("device") == "device"
+    assert capability.resolve_scan_backend("host") == "host"
 
 
-def test_env_flags_read_fresh_despite_probe_cache(monkeypatch):
-    # The lowering probe is cached; the env gates must NOT be.
-    monkeypatch.delenv("DMMT_FORCE_PALLAS", raising=False)
-    monkeypatch.setenv("DMMT_PALLAS_INTERPRET", "1")
-    assert capability.pallas_capable() is True
-    monkeypatch.delenv("DMMT_PALLAS_INTERPRET")
-    assert capability.pallas_capable() is False
-    monkeypatch.setenv("DMMT_PALLAS_INTERPRET", "1")
-    assert capability.pallas_capable() is True
+def test_trace_mode_key_reads_env_fresh(monkeypatch):
+    monkeypatch.delenv("DMMT_P1", raising=False)
+    monkeypatch.delenv("DMMT_TABLE_ABLATE", raising=False)
+    assert capability.trace_mode_key() == ("plane", False)
+    monkeypatch.setenv("DMMT_P1", "plane2")
+    monkeypatch.setenv("DMMT_TABLE_ABLATE", "1")
+    assert capability.trace_mode_key() == ("plane2", True)
 
 
-def test_gated_paths_follow_probe(monkeypatch):
-    """The pack/lookup/histogram/fused gates all resolve through the
-    probe now; on CPU without interpret they take XLA fallbacks and stay
-    numerically correct (covered elsewhere) — here just check routing."""
-    from dmmt_jpeg_encoder_tpu.bitstream.device_pack import _use_pallas_pack
+def test_mode_keyed_cache_rebuilds_on_env_toggle(monkeypatch):
+    builds = []
 
-    monkeypatch.delenv("DMMT_PALLAS_INTERPRET", raising=False)
-    monkeypatch.delenv("DMMT_FORCE_PALLAS", raising=False)
-    assert _use_pallas_pack() is False
-    monkeypatch.setenv("DMMT_PALLAS_INTERPRET", "1")
-    assert _use_pallas_pack() is True
+    @capability.mode_keyed_cache(maxsize=4)
+    def build(x):
+        builds.append(x)
+        return object()
+
+    monkeypatch.setenv("DMMT_P1", "plane")
+    a = build(1)
+    assert build(1) is a and builds == [1]
+    monkeypatch.setenv("DMMT_P1", "block")
+    assert build(1) is not a and builds == [1, 1]

@@ -7,7 +7,7 @@ signed (no +128), so: white -> (127, 0, 0)-ish, black -> (-128, 0, 0).
 import numpy as np
 import jax.numpy as jnp
 
-from dmmt_jpeg_encoder_tpu.ops.color import rgb_to_ycbcr
+from dmmt_jpeg_encoder.ops.color import rgb_to_ycbcr
 
 
 def _convert_one(r, g, b):

@@ -3,14 +3,14 @@ asserts exact segment bytes)."""
 
 import numpy as np
 
-from dmmt_jpeg_encoder_tpu.config import ChromaSubsamplingPreset
-from dmmt_jpeg_encoder_tpu.container import (
+from dmmt_jpeg_encoder.config import ChromaSubsamplingPreset
+from dmmt_jpeg_encoder.container import (
     app0_jfif,
     dqt,
     sof0,
     sos,
 )
-from dmmt_jpeg_encoder_tpu.tables import ZIGZAG
+from dmmt_jpeg_encoder.tables import ZIGZAG
 
 
 def test_app0_golden():

@@ -6,8 +6,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dmmt_jpeg_encoder_tpu.config import DCTVariant
-from dmmt_jpeg_encoder_tpu.ops.dct import dct2d, dct_matrix, idct2d
+from dmmt_jpeg_encoder.config import DCTVariant
+from dmmt_jpeg_encoder.ops.dct import dct2d, dct_matrix, idct2d
 
 
 def _blocks(rng, n=16, scale=128.0):
@@ -71,14 +71,13 @@ def test_parseval_energy_preserved(rng):
 
 
 def test_plane_modes_bit_identical(monkeypatch):
-    monkeypatch.setenv("DMMT_PALLAS_INTERPRET", "1")
     """All DMMT_P1 layout strategies must produce identical zigzag blocks."""
     import numpy as np
-    from dmmt_jpeg_encoder_tpu.config import ChromaSubsamplingPreset, DCTVariant
-    from dmmt_jpeg_encoder_tpu import pipeline as pl
-    from dmmt_jpeg_encoder_tpu.ops.geometry import entangle_permutation
-    from dmmt_jpeg_encoder_tpu.tables import quantization_table_pair
-    from dmmt_jpeg_encoder_tpu.config import QuantizationTablePreset
+    from dmmt_jpeg_encoder.config import ChromaSubsamplingPreset, DCTVariant
+    from dmmt_jpeg_encoder import pipeline as pl
+    from dmmt_jpeg_encoder.ops.geometry import entangle_permutation
+    from dmmt_jpeg_encoder.tables import quantization_table_pair
+    from dmmt_jpeg_encoder.config import QuantizationTablePreset
 
     rng = np.random.default_rng(3)
     h, w = 64, 96
@@ -89,7 +88,7 @@ def test_plane_modes_bit_identical(monkeypatch):
     outs = {}
     for preset in ChromaSubsamplingPreset:
         ent = entangle_permutation(w // 8, h // 8, preset)
-        for mode in ("block", "plane", "plane_mm", "plane2", "pallas"):
+        for mode in ("block", "plane", "plane_mm", "plane2"):
             monkeypatch.setenv("DMMT_P1", mode)
             outs[mode] = [
                 np.asarray(x)
@@ -98,6 +97,6 @@ def test_plane_modes_bit_identical(monkeypatch):
                     preset, DCTVariant.ARAI, ent,
                 )
             ]
-        for mode in ("plane", "plane_mm", "plane2", "pallas"):
+        for mode in ("plane", "plane_mm", "plane2"):
             for got, want in zip(outs[mode], outs["block"]):
                 np.testing.assert_array_equal(got, want)

@@ -36,8 +36,8 @@ from pathlib import Path
 
 import pytest
 
-from dmmt_jpeg_encoder_tpu.bitstream.bitwriter import BitWriter
-from dmmt_jpeg_encoder_tpu.debug.jpeg_decoder import (
+from dmmt_jpeg_encoder.bitstream.bitwriter import BitWriter
+from dmmt_jpeg_encoder.debug.jpeg_decoder import (
     _BitReader,
     _decode_symbol,
     _extend,
@@ -177,7 +177,7 @@ def test_our_encoder_reproduces_worksheet_bit_conventions():
 
     import numpy as np
 
-    import dmmt_jpeg_encoder_tpu as dj
+    import dmmt_jpeg_encoder as dj
 
     # Flat mid-gray 8x8: one MCU, DC-only blocks, like the worksheet's.
     px = np.full((8, 8, 3), 84, dtype=np.uint8)

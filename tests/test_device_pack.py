@@ -5,20 +5,21 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dmmt_jpeg_encoder_tpu import (
+from dmmt_jpeg_encoder import (
     ChromaSubsamplingPreset,
     EncoderConfig,
     encode_array,
 )
-from dmmt_jpeg_encoder_tpu.bitstream.device_pack import (
+from dmmt_jpeg_encoder.bitstream.device_pack import (
     device_pack_scan,
     finalize_scan_bytes,
-    scan_order_permutation,
+    _interleave_scan,
+    scan_table_index,
 )
-from dmmt_jpeg_encoder_tpu.bitstream.packer import encode_scan
-from dmmt_jpeg_encoder_tpu.entropy.categorize import symbol_histograms
-from dmmt_jpeg_encoder_tpu.huffman.canonical import flat_code_arrays
-from dmmt_jpeg_encoder_tpu.huffman.spec import code_lengths_from_histogram
+from dmmt_jpeg_encoder.bitstream.packer import encode_scan
+from dmmt_jpeg_encoder.entropy.categorize import symbol_histograms
+from dmmt_jpeg_encoder.huffman.canonical import flat_code_arrays
+from dmmt_jpeg_encoder.huffman.spec import code_lengths_from_histogram
 
 
 def _tables_for(blocks_list):
@@ -41,17 +42,33 @@ def _random_blocks(rng, n, density=0.12):
     return blocks
 
 
+def _interleave_order(n_luma, n_chroma, lpm):
+    """Scan order of the concatenated [luma; cb; cr] block indices, as
+    _interleave_scan lays the blocks out, plus the code-table set of each
+    scan position (0 luma, 1 chroma)."""
+    ids = np.arange(n_luma + 2 * n_chroma, dtype=np.int32)
+    blocks = np.repeat(ids[:, None], 64, axis=1)
+    scan = _interleave_scan(
+        jnp.asarray(blocks[:n_luma]),
+        jnp.asarray(blocks[n_luma : n_luma + n_chroma]),
+        jnp.asarray(blocks[n_luma + n_chroma :]),
+        n_chroma, lpm,
+    )
+    order = np.asarray(scan)[:, 0].tolist()
+    return order, scan_table_index(len(order), lpm + 2, lpm).tolist()
+
+
 def test_scan_order_permutation_p420():
-    perm, is_luma = scan_order_permutation(8, 2, 4)
+    order, table = _interleave_order(8, 2, 4)
     # MCU: 4 luma, cb, cr
-    assert perm.tolist() == [0, 1, 2, 3, 8, 10, 4, 5, 6, 7, 9, 11]
-    assert is_luma.tolist() == [1, 1, 1, 1, 0, 0, 1, 1, 1, 1, 0, 0]
+    assert order == [0, 1, 2, 3, 8, 10, 4, 5, 6, 7, 9, 11]
+    assert table == [0, 0, 0, 0, 1, 1, 0, 0, 0, 0, 1, 1]
 
 
 def test_scan_order_permutation_p444():
-    perm, is_luma = scan_order_permutation(3, 3, 1)
-    assert perm.tolist() == [0, 3, 6, 1, 4, 7, 2, 5, 8]
-    assert is_luma.tolist() == [1, 0, 0, 1, 0, 0, 1, 0, 0]
+    order, table = _interleave_order(3, 3, 1)
+    assert order == [0, 3, 6, 1, 4, 7, 2, 5, 8]
+    assert table == [0, 1, 1, 0, 1, 1, 0, 1, 1]
 
 
 def test_finalize_pads_with_ones():
@@ -69,7 +86,7 @@ def test_finalize_stuffs_ff():
 
 
 def test_byteswap_words_roundtrip():
-    from dmmt_jpeg_encoder_tpu.bitstream.device_pack import byteswap_words
+    from dmmt_jpeg_encoder.bitstream.device_pack import byteswap_words
     import jax.numpy as jnp
 
     w = np.array([0x01020304, 0xFFB0C0D0, 0], dtype=np.uint32)
@@ -115,7 +132,7 @@ def test_device_pack_long_zero_runs(rng):
 def test_exact_scan_bits_matches_device_count(rng):
     """Host-computed stream length (histograms x code lengths) must equal
     the device's actual packed bit count."""
-    from dmmt_jpeg_encoder_tpu.bitstream.device_pack import exact_scan_bits
+    from dmmt_jpeg_encoder.bitstream.device_pack import exact_scan_bits
 
     n_mcu = 9
     luma = _random_blocks(rng, n_mcu * 2)

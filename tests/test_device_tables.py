@@ -4,13 +4,12 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dmmt_jpeg_encoder_tpu.huffman.canonical import flat_code_arrays
-from dmmt_jpeg_encoder_tpu.huffman.device_tables import (
+from dmmt_jpeg_encoder.huffman.canonical import flat_code_arrays
+from dmmt_jpeg_encoder.huffman.device_tables import (
     device_code_tables,
-    device_sweep_tables,
     pad_dc_histogram,
 )
-from dmmt_jpeg_encoder_tpu.huffman.spec import code_lengths_from_histogram
+from dmmt_jpeg_encoder.huffman.spec import code_lengths_from_histogram
 
 
 def _host_tables(hist):
@@ -89,11 +88,11 @@ def test_skewed_large_counts():
 
 
 def test_real_image_histograms(fixtures_dir):
-    from dmmt_jpeg_encoder_tpu.config import EncoderConfig
-    from dmmt_jpeg_encoder_tpu.io.ppm import read_ppm
-    from dmmt_jpeg_encoder_tpu.pipeline import run_device_pipeline
-    from dmmt_jpeg_encoder_tpu.tables import quantization_table_pair
-    from dmmt_jpeg_encoder_tpu.config import QuantizationTablePreset
+    from dmmt_jpeg_encoder.config import EncoderConfig
+    from dmmt_jpeg_encoder.io.ppm import read_ppm
+    from dmmt_jpeg_encoder.pipeline import run_device_pipeline
+    from dmmt_jpeg_encoder.tables import quantization_table_pair
+    from dmmt_jpeg_encoder.config import QuantizationTablePreset
 
     img = read_ppm(fixtures_dir / "500x500.ppm")
     lq, cq = quantization_table_pair(QuantizationTablePreset.SPECIFICATION)
@@ -107,25 +106,30 @@ def test_real_image_histograms(fixtures_dir):
         _assert_match(np.asarray(hist))
 
 
-def test_sweep_tables_match_host():
-    from dmmt_jpeg_encoder_tpu.bitstream.fused_pack import build_sweep_tables
+def test_comb_tables_match_host():
+    """device_comb_tables (device-built tables -> the packer's combined
+    code<<8|len lookups) equals combine_tables over the host tables."""
+    from dmmt_jpeg_encoder.bitstream.device_pack import (
+        combine_tables,
+        device_comb_tables,
+    )
 
     rng = np.random.default_rng(5)
-    h1 = np.zeros(256, np.int64)
-    h2 = np.zeros(256, np.int64)
-    h1[rng.choice(256, 40, replace=False)] = rng.integers(1, 1000, 40)
-    h2[rng.choice(256, 55, replace=False)] = rng.integers(1, 1000, 55)
-    l1, _, _ = _host_tables(h1)
-    l2, _, _ = _host_tables(h2)
-    host = build_sweep_tables(
-        flat_code_arrays(l1), flat_code_arrays(l1),
-        flat_code_arrays(l2), flat_code_arrays(l2),
+    hists = []
+    for n_bins, n_present in ((16, 7), (256, 40), (16, 11), (256, 55)):
+        h = np.zeros(256, np.int64)
+        h[rng.choice(n_bins, n_present, replace=False)] = rng.integers(
+            1, 1000, n_present
+        )
+        hists.append(h)
+    host = [_host_tables(h) for h in hists]
+    dev = [device_code_tables(jnp.asarray(h, jnp.int32)) for h in hists]
+    dc, ac = device_comb_tables(*dev)
+    want_dc = np.concatenate(
+        [combine_tables(host[i][1][:16], host[i][2][:16]) for i in (0, 2)]
     )
-    d1 = device_code_tables(jnp.asarray(h1, jnp.int32))
-    d2 = device_code_tables(jnp.asarray(h2, jnp.int32))
-    syms, la, ca, k = device_sweep_tables(d1, d2, k_cap=host[3].shape[0])
-    # host ac sweep arrays (indices 3..5) built from the same two tables
-    np.testing.assert_array_equal(np.asarray(syms), host[3])
-    np.testing.assert_array_equal(np.asarray(la), host[4])
-    np.testing.assert_array_equal(np.asarray(ca), host[5])
-    assert int(k) == int((np.asarray(host[3]) >= 0).sum())
+    want_ac = np.concatenate(
+        [combine_tables(host[i][1], host[i][2]) for i in (1, 3)]
+    )
+    np.testing.assert_array_equal(np.asarray(dc), want_dc)
+    np.testing.assert_array_equal(np.asarray(ac), want_ac)

@@ -11,14 +11,14 @@ from io import BytesIO
 import numpy as np
 import pytest
 
-from dmmt_jpeg_encoder_tpu import (
+from dmmt_jpeg_encoder import (
     ChromaSubsamplingPreset,
     EncoderConfig,
     QuantizationTablePreset,
     convert_ppm_to_jpeg,
     encode_ppm_image,
 )
-from dmmt_jpeg_encoder_tpu.io.ppm import read_ppm
+from dmmt_jpeg_encoder.io.ppm import read_ppm
 
 PIL = pytest.importorskip("PIL.Image")
 
@@ -122,7 +122,7 @@ def test_gradient_roundtrip_all_presets():
         ],
         axis=-1,
     ).astype(np.uint16)
-    from dmmt_jpeg_encoder_tpu import encode_array
+    from dmmt_jpeg_encoder import encode_array
 
     src = pixels.astype(np.float64)
     for preset in ChromaSubsamplingPreset:
@@ -141,7 +141,7 @@ def test_convert_file_to_file(fixtures_dir, tmp_path):
 
 def test_maxval_scaling():
     """A maxval-31 image must encode like its 8-bit-scaled equivalent."""
-    from dmmt_jpeg_encoder_tpu import encode_array
+    from dmmt_jpeg_encoder import encode_array
 
     xx = np.arange(32)
     grad = (xx[None, :] + xx[:, None]) * 31 // 62  # smooth 0..31 ramp

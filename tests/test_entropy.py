@@ -4,7 +4,7 @@ histograms (reference behavior: categorize.rs, symbol_counting.rs)."""
 import numpy as np
 import jax.numpy as jnp
 
-from dmmt_jpeg_encoder_tpu.entropy.categorize import (
+from dmmt_jpeg_encoder.entropy.categorize import (
     ac_symbols_and_structure,
     dc_dpcm,
     magnitude_category,

@@ -1,27 +1,23 @@
-"""Fused one-kernel scan packer vs the staged reference (interpret mode)."""
+"""The device scan packer (device_pack.pack_scan_words: emissions ->
+exclusive scan of block bits -> disjoint scatter-add) vs the independent
+pure-Python BitWriter packer, plus its validity mask and its vmapped
+(slab) form."""
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 
-from dmmt_jpeg_encoder_tpu.bitstream.device_pack import (
-    block_emissions,
+from dmmt_jpeg_encoder.bitstream.device_pack import (
     combine_tables,
-    pack_to_words,
+    finalize_scan_bytes,
+    pack_scan_words,
+    scan_words_capacity,
 )
-from dmmt_jpeg_encoder_tpu.bitstream.fused_pack import (
-    build_sweep_tables,
-    fused_pack_capacity,
-    fused_pack_words,
-)
-from dmmt_jpeg_encoder_tpu.entropy.categorize import symbol_histograms
-from dmmt_jpeg_encoder_tpu.huffman.canonical import flat_code_arrays
-from dmmt_jpeg_encoder_tpu.huffman.spec import code_lengths_from_histogram
-
-
-@pytest.fixture
-def interpret(monkeypatch):
-    monkeypatch.setenv("DMMT_PALLAS_INTERPRET", "1")
+from dmmt_jpeg_encoder.bitstream.packer import encode_scan
+from dmmt_jpeg_encoder.entropy.categorize import symbol_histograms
+from dmmt_jpeg_encoder.huffman.canonical import flat_code_arrays
+from dmmt_jpeg_encoder.huffman.spec import code_lengths_from_histogram
 
 
 def _scan_case(rng, n_mcu, luma_per_mcu, density=0.15):
@@ -49,97 +45,60 @@ def _scan_case(rng, n_mcu, luma_per_mcu, density=0.15):
     return blocks, is_chroma, ldc, lac, cdc, cac
 
 
-def _reference_words(blocks, is_chroma, ldc, lac, cdc, cac, cap):
-    dc_comb = np.concatenate(
+def _comb(ldc, lac, cdc, cac):
+    dc = np.concatenate(
         [
             combine_tables(np.asarray(ldc[0])[:16], np.asarray(ldc[1])[:16]),
             combine_tables(np.asarray(cdc[0])[:16], np.asarray(cdc[1])[:16]),
         ]
     )
-    ac_comb = np.concatenate(
+    ac = np.concatenate(
         [
             combine_tables(np.asarray(lac[0]), np.asarray(lac[1])),
             combine_tables(np.asarray(cac[0]), np.asarray(cac[1])),
         ]
     )
-    values, lens, offs, block_bits = block_emissions(
-        jnp.asarray(blocks),
-        jnp.asarray(is_chroma.astype(np.int32)),
-        jnp.asarray(dc_comb),
-        jnp.asarray(ac_comb),
-    )
-    words, bits = pack_to_words(values, lens, offs, block_bits, cap)
-    # fused_pack_words emits words already in MEMORY (big-endian stream)
-    # order; swap the logical-order reference to match
-    from dmmt_jpeg_encoder_tpu.bitstream.device_pack import byteswap_words
+    return jnp.asarray(dc), jnp.asarray(ac)
 
-    return byteswap_words(words), bits
+
+def _device_scan(blocks, lpm, tables, valid=None):
+    dc, ac = _comb(*tables)
+    words, bits = pack_scan_words(
+        jnp.asarray(blocks), lpm + 2, lpm, dc, ac,
+        scan_words_capacity(blocks.shape[0]),
+        valid=None if valid is None else jnp.asarray(valid),
+    )
+    return finalize_scan_bytes(np.asarray(words), int(bits)), int(bits)
+
+
+def _python_scan(blocks, is_chroma, lpm, tables):
+    """Independent reference: the pure-Python BitWriter packer over the
+    de-interleaved channels."""
+    chroma = blocks[is_chroma]
+    return encode_scan(
+        blocks[~is_chroma], chroma[0::2], chroma[1::2], lpm, *tables,
+        use_native=False,
+    )
 
 
 @pytest.mark.parametrize("luma_per_mcu,n_mcu", [(1, 40), (2, 30), (4, 25)])
-def test_fused_pack_matches_reference(rng, interpret, luma_per_mcu, n_mcu):
-    blocks, is_chroma, ldc, lac, cdc, cac = _scan_case(rng, n_mcu, luma_per_mcu)
-    cap = fused_pack_capacity(blocks.shape[0] * 64 + 2)
-    ref_words, ref_bits = _reference_words(
-        blocks, is_chroma, ldc, lac, cdc, cac, cap
-    )
-    sweep = build_sweep_tables(ldc, lac, cdc, cac)
-    words, bits = fused_pack_words(
-        jnp.asarray(blocks), luma_per_mcu + 2, luma_per_mcu, sweep, cap
-    )
-    assert int(bits) == int(ref_bits)
-    used = (int(ref_bits) + 31) // 32
-    np.testing.assert_array_equal(
-        np.asarray(words[:used]), np.asarray(ref_words[:used])
-    )
+def test_fused_pack_matches_reference(rng, luma_per_mcu, n_mcu):
+    blocks, is_chroma, *tables = _scan_case(rng, n_mcu, luma_per_mcu)
+    got, _ = _device_scan(blocks, luma_per_mcu, tables)
+    assert got == _python_scan(blocks, is_chroma, luma_per_mcu, tables)
 
 
-def test_fused_pack_dense_worst_case(rng, interpret):
-    """Near-dense blocks: long codes, multi-word fragments."""
-    blocks, is_chroma, ldc, lac, cdc, cac = _scan_case(
-        rng, 12, 4, density=0.95
-    )
-    cap = fused_pack_capacity(blocks.shape[0] * 64 + 2)
-    ref_words, ref_bits = _reference_words(
-        blocks, is_chroma, ldc, lac, cdc, cac, cap
-    )
-    sweep = build_sweep_tables(ldc, lac, cdc, cac)
-    words, bits = fused_pack_words(
-        jnp.asarray(blocks), 6, 4, sweep, cap
-    )
-    assert int(bits) == int(ref_bits)
-    used = (int(ref_bits) + 31) // 32
-    np.testing.assert_array_equal(
-        np.asarray(words[:used]), np.asarray(ref_words[:used])
-    )
+def test_fused_pack_dense_worst_case(rng):
+    """Near-dense blocks: long codes, emissions spilling across words."""
+    blocks, is_chroma, *tables = _scan_case(rng, 12, 4, density=0.95)
+    got, _ = _device_scan(blocks, 4, tables)
+    assert got == _python_scan(blocks, is_chroma, 4, tables)
 
 
-def test_fused_pack_with_adjustments(rng, interpret):
-    """Per-block bit adjustments word-align a second image's stream."""
-    blocks, is_chroma, ldc, lac, cdc, cac = _scan_case(rng, 20, 1)
-    cap = fused_pack_capacity(blocks.shape[0] * 64 + 64)
-    sweep = build_sweep_tables(ldc, lac, cdc, cac)
-    plain, bits = fused_pack_words(jnp.asarray(blocks), 3, 1, sweep, cap)
-    base_words = 9
-    adj = np.zeros(blocks.shape[0], np.int32)
-    adj[0] = base_words * 32
-    shifted, total = fused_pack_words(
-        jnp.asarray(blocks), 3, 1, sweep, cap, adj=jnp.asarray(adj)
-    )
-    used = (int(bits) + 31) // 32
-    np.testing.assert_array_equal(
-        np.asarray(shifted[base_words : base_words + used]),
-        np.asarray(plain[:used]),
-    )
-    assert int(np.asarray(shifted[:base_words]).sum()) == 0
-    assert int(total) == int(bits) + base_words * 32
-
-
-def test_fused_pack_27bit_emission_value(rng, interpret):
+def test_fused_pack_27bit_emission_value():
     """A 16-bit codeword paired with a category-11 coefficient makes a
-    27-bit emission VALUE. The rank-compaction (val, len) pack must keep
-    all 27 bits (an i32 '<< 5' pack overflows the sign bit and unpacks
-    sign-extended — regression for exactly that)."""
+    27-bit emission VALUE; all 27 bits must land in the stream (an i32
+    pack that overflows the sign bit would corrupt it)."""
     lpm = 1
     stride = lpm + 2
     n_mcu = 4
@@ -159,29 +118,52 @@ def test_fused_pack_27bit_emission_value(rng, interpret):
             lens[sym] = ln
         return codes, lens
 
-    # handcrafted tables: the packer only looks codes up, and both the
-    # fused kernel and the staged reference get the SAME tables
-    ldc = flat(16, [(0, 0b101, 3)])
-    lac = flat(256, [
-        (0x0B, 0xFFFE, 16),   # run 0, cat 11 -> the 27-bit emission
-        (0x0A, 0x3FFE, 14),   # run 0, cat 10 (the -1200 coefficient)
-        (0x72, 0x6, 3),       # run 7, cat 2
-        (0x41, 0x2, 3),       # run 4, cat 1
-        (0x00, 0x0, 2),       # EOB
-    ])
-    cdc = flat(16, [(0, 0b1, 2)])
-    cac = flat(256, [(0x00, 0x3, 2)])
+    # handcrafted tables: both packers only look codes up
+    tables = (
+        flat(16, [(0, 0b101, 3)]),
+        flat(256, [
+            (0x0B, 0xFFFE, 16),   # run 0, cat 11 -> the 27-bit emission
+            (0x72, 0x6, 3),       # run 7, cat 2
+            (0x41, 0x2, 3),       # run 4, cat 1
+            (0x00, 0x0, 2),       # EOB
+        ]),
+        flat(16, [(0, 0b1, 2)]),
+        flat(256, [(0x00, 0x3, 2)]),
+    )
+    got, _ = _device_scan(blocks, lpm, tables)
+    assert got == _python_scan(blocks, is_chroma, lpm, tables)
 
-    cap = fused_pack_capacity(blocks.shape[0] * 64 + 2)
-    ref_words, ref_bits = _reference_words(
-        blocks, is_chroma, ldc, lac, cdc, cac, cap
+
+def test_pack_valid_mask_drops_masked_blocks(rng):
+    """Masked blocks emit nothing: masking the last two MCUs packs the
+    same stream as packing only the valid prefix."""
+    lpm, stride = 2, 4
+    blocks, is_chroma, *tables = _scan_case(rng, 20, lpm)
+    n_valid = (20 - 2) * stride
+    valid = np.arange(blocks.shape[0]) < n_valid
+    got, bits = _device_scan(blocks, lpm, tables, valid=valid)
+    want, want_bits = _device_scan(blocks[:n_valid], lpm, tables)
+    assert (got, bits) == (want, want_bits)
+    assert got == _python_scan(
+        blocks[:n_valid], is_chroma[:n_valid], lpm, tables
     )
-    sweep = build_sweep_tables(ldc, lac, cdc, cac)
-    words, bits = fused_pack_words(
-        jnp.asarray(blocks), stride, lpm, sweep, cap
+
+
+def test_pack_slab_vmapped_matches_per_image(rng):
+    """The slab program vmaps the packer over stacked images; each image's
+    stream equals its standalone pack."""
+    lpm, n_mcu, b = 4, 9, 3
+    cases = [_scan_case(rng, n_mcu, lpm) for _ in range(b)]
+    n = cases[0][0].shape[0]
+    cap = scan_words_capacity(n)
+    dcs, acs = zip(*(_comb(*c[2:]) for c in cases))
+    words, bits = jax.vmap(
+        lambda blk, dc, ac: pack_scan_words(blk, lpm + 2, lpm, dc, ac, cap)
+    )(
+        jnp.stack([jnp.asarray(c[0]) for c in cases]),
+        jnp.stack(dcs),
+        jnp.stack(acs),
     )
-    assert int(bits) == int(ref_bits)
-    used = (int(ref_bits) + 31) // 32
-    np.testing.assert_array_equal(
-        np.asarray(words[:used]), np.asarray(ref_words[:used])
-    )
+    for i, c in enumerate(cases):
+        got = finalize_scan_bytes(np.asarray(words[i]), int(bits[i]))
+        assert got == _python_scan(c[0], c[1], lpm, c[2:])

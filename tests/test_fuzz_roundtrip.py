@@ -5,8 +5,8 @@ native/python packer equality."""
 import numpy as np
 import pytest
 
-from dmmt_jpeg_encoder_tpu import ChromaSubsamplingPreset, EncoderConfig, encode_array
-from dmmt_jpeg_encoder_tpu.debug.jpeg_decoder import decode_jpeg, parse_jpeg
+from dmmt_jpeg_encoder import ChromaSubsamplingPreset, EncoderConfig, encode_array
+from dmmt_jpeg_encoder.debug.jpeg_decoder import decode_jpeg, parse_jpeg
 
 
 def _content(rng, kind, h, w):

@@ -5,8 +5,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dmmt_jpeg_encoder_tpu.config import ChromaSubsamplingPreset
-from dmmt_jpeg_encoder_tpu.ops.geometry import (
+from dmmt_jpeg_encoder.config import ChromaSubsamplingPreset
+from dmmt_jpeg_encoder.ops.geometry import (
     blockize,
     entangle_permutation,
     pad_to_mcu_multiple,
@@ -102,7 +102,7 @@ def test_entangle_odd_rejected():
 
 
 def test_entangled_blockize_matches_permutation(rng):
-    from dmmt_jpeg_encoder_tpu.ops.geometry import entangled_blockize_p420
+    from dmmt_jpeg_encoder.ops.geometry import entangled_blockize_p420
 
     chan = jnp.asarray(rng.random((48, 64)).astype(np.float32))
     perm = entangle_permutation(64 // 8, 48 // 8, P420)
@@ -144,8 +144,8 @@ def _reference_subsample(chan, hr, vr, average):
      ((7, 7), 4, 4), ((8, 8), 1, 1)],
 )
 def test_subsample_generalized_average(shape, hr, vr):
-    from dmmt_jpeg_encoder_tpu.config import SubsamplingMethod
-    from dmmt_jpeg_encoder_tpu.ops.geometry import subsample_generalized
+    from dmmt_jpeg_encoder.config import SubsamplingMethod
+    from dmmt_jpeg_encoder.ops.geometry import subsample_generalized
 
     rng = np.random.default_rng(5)
     chan = rng.random(shape, dtype=np.float32)
@@ -158,8 +158,8 @@ def test_subsample_generalized_average(shape, hr, vr):
 
 @pytest.mark.parametrize("shape,hr,vr", [((13, 17), 2, 3), ((8, 8), 2, 2)])
 def test_subsample_generalized_skip(shape, hr, vr):
-    from dmmt_jpeg_encoder_tpu.config import SubsamplingMethod
-    from dmmt_jpeg_encoder_tpu.ops.geometry import subsample_generalized
+    from dmmt_jpeg_encoder.config import SubsamplingMethod
+    from dmmt_jpeg_encoder.ops.geometry import subsample_generalized
 
     rng = np.random.default_rng(6)
     chan = rng.random(shape, dtype=np.float32)
@@ -173,8 +173,8 @@ def test_subsample_generalized_skip(shape, hr, vr):
 def test_subsample_generalized_matches_preset_path():
     """On MCU-padded shapes the generalized path must equal the preset
     reshape fast path bit-for-bit (same summation order)."""
-    from dmmt_jpeg_encoder_tpu.config import ChromaSubsamplingPreset
-    from dmmt_jpeg_encoder_tpu.ops.geometry import subsample, subsample_generalized
+    from dmmt_jpeg_encoder.config import ChromaSubsamplingPreset
+    from dmmt_jpeg_encoder.ops.geometry import subsample, subsample_generalized
 
     rng = np.random.default_rng(7)
     chan = jnp.asarray(rng.random((32, 48), dtype=np.float32))

@@ -13,8 +13,9 @@ explicitly re-goldened:
     git diff tests/goldens.json    # review, then commit
 
 The hashes are produced on the CPU backend with the host scan packer; the
-device packer and TPU backend are asserted byte-equal to this path by
-tests/test_device_pack.py and the /verify flow respectively.
+device packer is asserted byte-equal to this path by
+tests/test_device_pack.py, and the GPU by chip_smoke.py (on the seeded
+corpus of tests/goldens_seeded.json).
 """
 
 from __future__ import annotations
@@ -32,14 +33,14 @@ if __name__ == "__main__":  # script mode: repo root on path, CPU backend
 
 import pytest
 
-from dmmt_jpeg_encoder_tpu.config import (
+from dmmt_jpeg_encoder.config import (
     ChromaSubsamplingPreset,
     DCTVariant,
     EncoderConfig,
     QuantizationTablePreset,
 )
-from dmmt_jpeg_encoder_tpu.encoder import encode_ppm_image
-from dmmt_jpeg_encoder_tpu.io.ppm import read_ppm
+from dmmt_jpeg_encoder.encoder import encode_ppm_image
+from dmmt_jpeg_encoder.io.ppm import read_ppm
 
 GOLDENS_PATH = Path(__file__).parent / "goldens.json"
 

@@ -4,22 +4,22 @@ length_limited.rs:136-330, huffman/encoder.rs:188-269, tree.rs round trips)."""
 import numpy as np
 import pytest
 
-from dmmt_jpeg_encoder_tpu.errors import (
+from dmmt_jpeg_encoder.errors import (
     HuffmanDepthOverflow,
     HuffmanUnsortedInput,
 )
-from dmmt_jpeg_encoder_tpu.huffman.canonical import (
+from dmmt_jpeg_encoder.huffman.canonical import (
     canonical_codes,
     dht_payload,
     flat_code_arrays,
 )
-from dmmt_jpeg_encoder_tpu.huffman.decoder import BitReader, HuffmanDecoder
-from dmmt_jpeg_encoder_tpu.huffman.package_merge import package_merge_lengths
-from dmmt_jpeg_encoder_tpu.huffman.spec import (
+from dmmt_jpeg_encoder.huffman.decoder import BitReader, HuffmanDecoder
+from dmmt_jpeg_encoder.huffman.package_merge import package_merge_lengths
+from dmmt_jpeg_encoder.huffman.spec import (
     SymbolCodeLength,
     code_lengths_from_histogram,
 )
-from dmmt_jpeg_encoder_tpu.bitstream.bitwriter import BitWriter
+from dmmt_jpeg_encoder.bitstream.bitwriter import BitWriter
 
 
 def kraft(lengths):
@@ -110,7 +110,7 @@ def test_canonical_assignment_golden():
 
 
 def test_canonical_rejects_ascending():
-    from dmmt_jpeg_encoder_tpu.errors import HuffmanUnsortedInput as HU
+    from dmmt_jpeg_encoder.errors import HuffmanUnsortedInput as HU
 
     with pytest.raises(HU):
         canonical_codes([SymbolCodeLength(0, 1), SymbolCodeLength(1, 2)])

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from dmmt_jpeg_encoder_tpu.huffman.tree import (
+from dmmt_jpeg_encoder.huffman.tree import (
     INNER,
     LEAF,
     ONESTAR,

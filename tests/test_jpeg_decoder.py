@@ -3,13 +3,13 @@
 import numpy as np
 import pytest
 
-from dmmt_jpeg_encoder_tpu import (
+from dmmt_jpeg_encoder import (
     ChromaSubsamplingPreset,
     EncoderConfig,
     QuantizationTablePreset,
     encode_array,
 )
-from dmmt_jpeg_encoder_tpu.debug.jpeg_decoder import decode_jpeg, parse_jpeg
+from dmmt_jpeg_encoder.debug.jpeg_decoder import decode_jpeg, parse_jpeg
 
 
 def _psnr(a, b):

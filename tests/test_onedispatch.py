@@ -5,8 +5,8 @@ import jax
 import numpy as np
 import pytest
 
-from dmmt_jpeg_encoder_tpu.config import ChromaSubsamplingPreset, EncoderConfig
-from dmmt_jpeg_encoder_tpu.encoder import encode_array, encode_batch
+from dmmt_jpeg_encoder.config import ChromaSubsamplingPreset, EncoderConfig
+from dmmt_jpeg_encoder.encoder import encode_array, encode_batch
 
 
 @pytest.fixture(autouse=True)
@@ -22,8 +22,7 @@ def _bound_compile_count_per_test():
 
 
 @pytest.fixture
-def interpret(monkeypatch):
-    monkeypatch.setenv("DMMT_PALLAS_INTERPRET", "1")
+def check_bits(monkeypatch):
     monkeypatch.setenv("DMMT_CHECK_BITS", "1")
 
 
@@ -37,7 +36,7 @@ def _image(rng, h, w):
 
 
 @pytest.mark.parametrize("preset", list(ChromaSubsamplingPreset))
-def test_one_dispatch_bytes_match_host(rng, interpret, preset):
+def test_one_dispatch_bytes_match_host(rng, check_bits, preset):
     px = _image(rng, 48, 64)
     od = encode_array(
         px, 255, EncoderConfig(chroma_subsampling=preset, scan_backend="device")
@@ -48,7 +47,7 @@ def test_one_dispatch_bytes_match_host(rng, interpret, preset):
     assert od == host
 
 
-def test_one_dispatch_odd_size_and_quality(rng, interpret):
+def test_one_dispatch_odd_size_and_quality(rng, check_bits):
     px = _image(rng, 37, 53)  # padding exercised
     cfg = EncoderConfig(
         chroma_subsampling=ChromaSubsamplingPreset.P420,
@@ -63,7 +62,7 @@ def test_one_dispatch_odd_size_and_quality(rng, interpret):
     assert encode_array(px, 255, cfg) == encode_array(px, 255, host)
 
 
-def test_one_dispatch_off_flag(rng, interpret):
+def test_one_dispatch_off_flag(rng, check_bits):
     px = _image(rng, 32, 32)
     on = encode_array(
         px, 255, EncoderConfig(scan_backend="device")
@@ -74,7 +73,7 @@ def test_one_dispatch_off_flag(rng, interpret):
     assert on == off
 
 
-def test_one_dispatch_batch_pipeline(rng, interpret):
+def test_one_dispatch_batch_pipeline(rng, check_bits):
     images = [_image(rng, 32, 48) for _ in range(3)]
     cfg = EncoderConfig(scan_backend="device")
     batched = encode_batch(images, 255, cfg)
@@ -83,7 +82,7 @@ def test_one_dispatch_batch_pipeline(rng, interpret):
 
 
 @pytest.mark.parametrize("quality", [1, 50, 100])
-def test_one_dispatch_quality_extremes(rng, interpret, quality):
+def test_one_dispatch_quality_extremes(rng, check_bits, quality):
     """q=1 floods the stream with ZRL/EOB symbols (giant quant steps);
     q=100 produces dense long streams — both must match the host packer."""
     px = _image(rng, 40, 48)
@@ -92,7 +91,7 @@ def test_one_dispatch_quality_extremes(rng, interpret, quality):
     assert encode_array(px, 255, cfg_d) == encode_array(px, 255, cfg_h)
 
 
-def test_one_dispatch_16bit_source(rng, interpret):
+def test_one_dispatch_16bit_source(rng, check_bits):
     """maxval > 255 sources stay uint16 end to end."""
     px = rng.integers(0, 1024, (24, 40, 3)).astype(np.uint16)
     d = encode_array(px, 1023, EncoderConfig(scan_backend="device"))
@@ -100,7 +99,7 @@ def test_one_dispatch_16bit_source(rng, interpret):
     assert d == h
 
 
-def test_one_dispatch_geometry_fuzz(rng, interpret):
+def test_one_dispatch_geometry_fuzz(rng, check_bits):
     """Odd geometries: single-MCU, single-row, padding in both axes."""
     for h, w in [(8, 8), (16, 8), (8, 24), (17, 9), (33, 15), (16, 50)]:
         jax.clear_caches()  # each geometry compiles ~8 fresh programs
@@ -117,12 +116,12 @@ def test_one_dispatch_geometry_fuzz(rng, interpret):
             assert d == hsot, (h, w, preset)
 
 
-def test_one_dispatch_planar_input_bytes_match(rng, interpret):
+def test_one_dispatch_planar_input_bytes_match(rng, check_bits):
     """[3, H, W] channel-planar input produces the same bytes as [H, W, 3]
     (the planar path pads u8 planes first and converts per plane)."""
-    from dmmt_jpeg_encoder_tpu import onedispatch as od
-    from dmmt_jpeg_encoder_tpu.config import QuantizationTablePreset
-    from dmmt_jpeg_encoder_tpu.tables import quantization_table_pair
+    from dmmt_jpeg_encoder import onedispatch as od
+    from dmmt_jpeg_encoder.config import QuantizationTablePreset
+    from dmmt_jpeg_encoder.tables import quantization_table_pair
 
     lq, cq = quantization_table_pair(QuantizationTablePreset.SPECIFICATION)
     for h, w in ((48, 64), (37, 53)):
@@ -140,17 +139,16 @@ def test_one_dispatch_planar_input_bytes_match(rng, interpret):
 
 
 def test_multi_image_onedispatch_matches_per_image(monkeypatch, rng):
-    """B same-geometry encodes in ONE program (VERDICT r2 #2b) must yield
-    the per-image scan bytes and tables."""
-    monkeypatch.setenv("DMMT_PALLAS_INTERPRET", "1")
-    from dmmt_jpeg_encoder_tpu import ChromaSubsamplingPreset, EncoderConfig
-    from dmmt_jpeg_encoder_tpu.config import QuantizationTablePreset
-    from dmmt_jpeg_encoder_tpu.onedispatch import (
+    """B same-geometry encodes in ONE program must yield the per-image
+    scan bytes and tables."""
+    from dmmt_jpeg_encoder import ChromaSubsamplingPreset, EncoderConfig
+    from dmmt_jpeg_encoder.config import QuantizationTablePreset
+    from dmmt_jpeg_encoder.onedispatch import (
         finish_one_dispatch,
         start_one_dispatch,
         start_one_dispatch_multi,
     )
-    from dmmt_jpeg_encoder_tpu.tables import quantization_table_pair
+    from dmmt_jpeg_encoder.tables import quantization_table_pair
 
     cfg = EncoderConfig(chroma_subsampling=ChromaSubsamplingPreset.P420)
     lq, cq = quantization_table_pair(QuantizationTablePreset.SPECIFICATION)

@@ -1,68 +1,15 @@
-"""Pallas kernel correctness in interpret mode (CPU) vs the XLA fallbacks."""
+"""Plain-XLA histogram and table-lookup building blocks vs numpy."""
 
 import numpy as np
 import jax.numpy as jnp
-import pytest
 
-from dmmt_jpeg_encoder_tpu.ops.pallas_histogram import (
-    pallas_histogram,
-    pallas_histogram_grouped,
-)
-from dmmt_jpeg_encoder_tpu.ops.pallas_lookup import (
-    pallas_table_lookup,
-    pallas_table_lookup_grouped,
-)
-
-
-@pytest.fixture
-def interpret(monkeypatch):
-    monkeypatch.setenv("DMMT_PALLAS_INTERPRET", "1")
-
-
-def test_histogram_interpret_matches_numpy(rng, interpret):
-    sym = rng.integers(0, 256, 10_000, dtype=np.int32)
-    w = (rng.random(10_000) < 0.7).astype(np.float32)
-    out = np.asarray(pallas_histogram(jnp.asarray(sym), jnp.asarray(w), 256))
-    exp = np.bincount(sym, weights=w, minlength=256).astype(np.int64)
-    np.testing.assert_array_equal(out, exp)
-
-
-def test_histogram_grouped_interpret(rng, interpret):
-    g, m = 3, 5000
-    sym = rng.integers(0, 16, (g, m), dtype=np.int32)
-    w = np.ones((g, m), np.float32)
-    out = np.asarray(
-        pallas_histogram_grouped(jnp.asarray(sym), jnp.asarray(w), 16)
-    )
-    for i in range(g):
-        np.testing.assert_array_equal(
-            out[i], np.bincount(sym[i], minlength=16)
-        )
-
-
-def test_lookup_interpret_matches_numpy(rng, interpret):
-    table = rng.integers(0, 1 << 24, 512, dtype=np.uint32)
-    sym = rng.integers(0, 512, (777, 63), dtype=np.int32)
-    out = np.asarray(pallas_table_lookup(jnp.asarray(sym), jnp.asarray(table)))
-    np.testing.assert_array_equal(out, table[sym])
-
-
-def test_lookup_grouped_interpret(rng, interpret):
-    g = 4
-    tables = rng.integers(0, 1 << 24, (g, 512), dtype=np.uint32)
-    sym = rng.integers(0, 512, (g, 3000), dtype=np.int32)
-    out = np.asarray(
-        pallas_table_lookup_grouped(jnp.asarray(sym), jnp.asarray(tables))
-    )
-    for i in range(g):
-        np.testing.assert_array_equal(out[i], tables[i][sym[i]])
+from dmmt_jpeg_encoder.entropy import categorize
 
 
 def test_lookup_values_above_f32_int_range_rejected_by_contract():
-    """Entries must stay < 2^24 for exact f32 one-hot matmul — the combined
-    (code<<8|len) words max out at 2^24-1, so this is structural, but the
-    contract is documented and asserted here."""
-    from dmmt_jpeg_encoder_tpu.bitstream.device_pack import combine_tables
+    """Combined (code<<8|len) words max out at 2^24-1: the packer's single
+    u32 gather returns both code and length with room to spare."""
+    from dmmt_jpeg_encoder.bitstream.device_pack import combine_tables
 
     codes = np.full(256, 0xFFFF, np.uint32)
     lens = np.full(256, 16, np.uint32)
@@ -71,18 +18,35 @@ def test_lookup_values_above_f32_int_range_rejected_by_contract():
 
 
 def test_matmul_histogram_matches_scatter(rng):
-    from dmmt_jpeg_encoder_tpu.ops.pallas_histogram import matmul_histogram
-
     syms = rng.integers(0, 256, 40_000).astype(np.int32)
     w = (rng.random(40_000) < 0.8).astype(np.float32)
-    got = np.asarray(matmul_histogram(jnp.asarray(syms), jnp.asarray(w), 256))
+    got = np.asarray(
+        categorize.bin_counts(jnp.asarray(syms), jnp.asarray(w), 256)
+    )
     want = np.zeros(256, np.int64)
     np.add.at(want, syms, w.astype(np.int64))
     np.testing.assert_array_equal(got, want)
     # 16-bin path
     syms16 = rng.integers(0, 16, 9_000).astype(np.int32)
     got16 = np.asarray(
-        matmul_histogram(jnp.asarray(syms16), jnp.ones(9_000, np.float32), 16)
+        categorize.bin_counts(
+            jnp.asarray(syms16), jnp.ones(9_000, np.float32), 16
+        )
     )
     want16 = np.bincount(syms16, minlength=16)
     np.testing.assert_array_equal(got16, want16)
+
+
+def test_histogram_chunks_sum_exactly(rng, monkeypatch):
+    """matmul_histogram sums per-chunk f32 counts in int32: with a tiny
+    chunk the split (and the zero-weight padding of the last chunk) must
+    not change a count."""
+    monkeypatch.setattr(categorize, "HIST_CHUNK", 64)
+    syms = rng.integers(0, 256, 1_001).astype(np.int32)
+    w = (rng.random(1_001) < 0.6).astype(np.float32)
+    got = np.asarray(
+        categorize.matmul_histogram(jnp.asarray(syms), jnp.asarray(w), 256)
+    )
+    want = np.zeros(256, np.int64)
+    np.add.at(want, syms, w.astype(np.int64))
+    np.testing.assert_array_equal(got, want)

@@ -6,7 +6,7 @@ import logging
 import numpy as np
 import pytest
 
-from dmmt_jpeg_encoder_tpu import (
+from dmmt_jpeg_encoder import (
     ChromaSubsamplingPreset,
     DCTVariant,
     EncoderConfig,
@@ -14,10 +14,10 @@ from dmmt_jpeg_encoder_tpu import (
     encode_array,
     read_ppm_bytes,
 )
-from dmmt_jpeg_encoder_tpu.bitstream.packer import encode_scan
-from dmmt_jpeg_encoder_tpu.container import segment
-from dmmt_jpeg_encoder_tpu.debug.jpeg_decoder import parse_jpeg
-from dmmt_jpeg_encoder_tpu.errors import HuffmanSymbolMissing, SegmentTooLong
+from dmmt_jpeg_encoder.bitstream.packer import encode_scan
+from dmmt_jpeg_encoder.container import segment
+from dmmt_jpeg_encoder.debug.jpeg_decoder import parse_jpeg
+from dmmt_jpeg_encoder.errors import HuffmanSymbolMissing, SegmentTooLong
 
 
 def _gradient(h, w, maxval=255):
@@ -35,8 +35,8 @@ def _gradient(h, w, maxval=255):
 def test_segment_hexdump_logging(caplog):
     """The reference hexdumps every segment (src/logger.rs:7-17); ours logs
     through the stdlib logger when enabled."""
-    logger = logging.getLogger("dmmt_jpeg_encoder_tpu")
-    with caplog.at_level(logging.INFO, logger="dmmt_jpeg_encoder_tpu"):
+    logger = logging.getLogger("dmmt_jpeg_encoder")
+    with caplog.at_level(logging.INFO, logger="dmmt_jpeg_encoder"):
         logger.setLevel(logging.INFO)
         encode_array(_gradient(8, 8))
     records = [r.message for r in caplog.records]

@@ -3,14 +3,14 @@
 import numpy as np
 import pytest
 
-from dmmt_jpeg_encoder_tpu.errors import (
+from dmmt_jpeg_encoder.errors import (
     ColorOutOfRange,
     PPMIncompletePixel,
     PPMMissingToken,
     PPMSizeMismatch,
     PPMTokenParseError,
 )
-from dmmt_jpeg_encoder_tpu.io.ppm import (
+from dmmt_jpeg_encoder.io.ppm import (
     _python_tokens,
     read_ppm,
     read_ppm_bytes,
@@ -109,7 +109,7 @@ def test_reference_fixture_16x16_header_is_8x8(fixtures_dir):
 
 
 def _mt_available():
-    from dmmt_jpeg_encoder_tpu.utils.native import load_native
+    from dmmt_jpeg_encoder.utils.native import load_native
 
     lib = load_native()
     return lib is not None and hasattr(lib, "dmmt_parse_ppm_mt")
@@ -117,7 +117,7 @@ def _mt_available():
 
 @pytest.mark.skipif(not _mt_available(), reason="native lib unavailable")
 def test_mt_parser_matches_python_on_fixtures(fixtures_dir):
-    from dmmt_jpeg_encoder_tpu.io.ppm import (
+    from dmmt_jpeg_encoder.io.ppm import (
         _build_image,
         _parse_native_mt,
         _tokenize_python,
@@ -137,7 +137,7 @@ def test_mt_parser_matches_python_on_fixtures(fixtures_dir):
 
 @pytest.mark.skipif(not _mt_available(), reason="native lib unavailable")
 def test_mt_parser_comment_and_boundary_edge_cases():
-    from dmmt_jpeg_encoder_tpu.io.ppm import _build_image, _parse_native_mt, _tokenize_python
+    from dmmt_jpeg_encoder.io.ppm import _build_image, _parse_native_mt, _tokenize_python
 
     cases = [
         # token spanning a comment (the reference's comment-mid-token rule)
@@ -166,7 +166,7 @@ def test_mt_parser_comment_and_boundary_edge_cases():
 def test_mt_parser_errors_fall_back():
     # bad magic / bad token / out-of-range color all return None (the
     # python path then raises the precise error, covered above)
-    from dmmt_jpeg_encoder_tpu.io.ppm import _parse_native_mt
+    from dmmt_jpeg_encoder.io.ppm import _parse_native_mt
 
     assert _parse_native_mt(b"P6\n1 1\n255\n1 2 3\n") is None
     assert _parse_native_mt(b"P3\n1 1\n255\n1 x 3\n") is None
@@ -186,7 +186,7 @@ def test_mt_parser_large_multichunk(rng):
     data = ("P3\n600 700\n255\n" + " \n".join(parts)).encode()
     # force multithreading even at this size by padding with comments
     data += b"#" + b"x" * (1 << 20) + b"\n"
-    from dmmt_jpeg_encoder_tpu.io.ppm import _build_image, _parse_native_mt, _tokenize_python
+    from dmmt_jpeg_encoder.io.ppm import _build_image, _parse_native_mt, _tokenize_python
 
     got = _parse_native_mt(data)
     want = _build_image(_tokenize_python(data))

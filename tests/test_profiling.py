@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from dmmt_jpeg_encoder_tpu.utils.profiling import StageTimer, stage_timer, trace
+from dmmt_jpeg_encoder.utils.profiling import StageTimer, stage_timer, trace
 
 
 def test_stage_timer_laps_and_report():

@@ -5,9 +5,9 @@ from io import BytesIO
 import numpy as np
 import pytest
 
-from dmmt_jpeg_encoder_tpu import EncoderConfig, QuantizationTablePreset, encode_array
-from dmmt_jpeg_encoder_tpu.cli import parse_args
-from dmmt_jpeg_encoder_tpu.tables import quantization_table_pair
+from dmmt_jpeg_encoder import EncoderConfig, QuantizationTablePreset, encode_array
+from dmmt_jpeg_encoder.cli import parse_args
+from dmmt_jpeg_encoder.tables import quantization_table_pair
 
 
 def test_q50_is_identity():

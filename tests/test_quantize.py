@@ -4,12 +4,12 @@ frequency_block.rs:1-61, quantization_tables.rs)."""
 import numpy as np
 import jax.numpy as jnp
 
-from dmmt_jpeg_encoder_tpu.config import QuantizationTablePreset
-from dmmt_jpeg_encoder_tpu.ops.quantize import (
+from dmmt_jpeg_encoder.config import QuantizationTablePreset
+from dmmt_jpeg_encoder.ops.quantize import (
     quantize_zigzag,
     round_half_away_from_zero,
 )
-from dmmt_jpeg_encoder_tpu.tables import (
+from dmmt_jpeg_encoder.tables import (
     INVERSE_ZIGZAG,
     ZIGZAG,
     quantization_table_pair,

@@ -1,12 +1,16 @@
-"""Per-shard device packing + host bit-merge vs the single-chip bytes."""
+"""Per-shard device packing + host bit-merge vs the single-device bytes.
+
+The two-dispatch per-shard pack (host tables, one_dispatch="off") and the
+one-dispatch sharded program (device tables + pack in one jit) are both
+covered."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 
-from dmmt_jpeg_encoder_tpu import ChromaSubsamplingPreset, EncoderConfig, encode_array
-from dmmt_jpeg_encoder_tpu.parallel.sharding import merge_bit_streams
+from dmmt_jpeg_encoder import ChromaSubsamplingPreset, EncoderConfig, encode_array
+from dmmt_jpeg_encoder.parallel.sharding import merge_bit_streams
 
 needs_8 = pytest.mark.skipif(
     len(jax.devices()) < 8, reason="needs 8 (virtual) devices"
@@ -47,15 +51,17 @@ def _px(rng, h, w):
 @needs_8
 @pytest.mark.parametrize("preset", list(ChromaSubsamplingPreset))
 def test_sharded_device_pack_matches_single_chip(rng, preset):
-    """scan_backend='device' on an 8-shard mesh (packing per shard, merging
-    segments on host) must produce the single-chip bytes exactly."""
+    """scan_backend='device' on an 8-shard mesh (two-dispatch: packing per
+    shard, merging segments on host) must produce the single-chip bytes
+    exactly."""
     h = 8 * preset.mcu_height
     pixels = _px(rng, h, 48)
     single = encode_array(pixels, 255, EncoderConfig(chroma_subsampling=preset))
     sharded = encode_array(
         pixels, 255,
         EncoderConfig(
-            chroma_subsampling=preset, num_shards=8, scan_backend="device"
+            chroma_subsampling=preset, num_shards=8, scan_backend="device",
+            one_dispatch="off",
         ),
     )
     assert sharded == single
@@ -67,7 +73,8 @@ def test_sharded_device_pack_non_divisible(rng):
     pixels = _px(rng, 44, 28)
     single = encode_array(pixels, 255, EncoderConfig())
     sharded = encode_array(
-        pixels, 255, EncoderConfig(num_shards=8, scan_backend="device")
+        pixels, 255,
+        EncoderConfig(num_shards=8, scan_backend="device", one_dispatch="off"),
     )
     assert sharded == single
 
@@ -77,20 +84,23 @@ def test_sharded_device_pack_larger_image(rng):
     pixels = _px(rng, 128, 96)
     single = encode_array(pixels, 255, EncoderConfig())
     for n in (2, 4, 8):
-        sharded = encode_array(
-            pixels, 255, EncoderConfig(num_shards=n, scan_backend="device")
-        )
-        assert sharded == single, n
+        for od in ("off", "auto"):
+            sharded = encode_array(
+                pixels, 255,
+                EncoderConfig(
+                    num_shards=n, scan_backend="device", one_dispatch=od
+                ),
+            )
+            assert sharded == single, (n, od)
 
 
 @needs_8
 @pytest.mark.parametrize("preset", list(ChromaSubsamplingPreset))
 def test_sharded_onedispatch_bit_exact(monkeypatch, rng, preset):
     """The ONE-program sharded encode (phase-1 + psum'd histograms +
-    device table build + per-shard fused pack in a single jit,
-    VERDICT r2 #4) must produce the single-chip bytes for every preset."""
-    monkeypatch.setenv("DMMT_PALLAS_INTERPRET", "1")
-    from dmmt_jpeg_encoder_tpu.parallel import sharding
+    device table build + per-shard pack in a single jit) must produce the
+    single-chip bytes for every preset."""
+    from dmmt_jpeg_encoder.parallel import sharding
 
     h = 8 * preset.mcu_height
     pixels = _px(rng, h, 48)
@@ -99,7 +109,7 @@ def test_sharded_onedispatch_bit_exact(monkeypatch, rng, preset):
         chroma_subsampling=preset, num_shards=8, scan_backend="device"
     )
     state = sharding.start_sharded_encode(pixels, 255, cfg)
-    assert state[0] == "onedispatch"  # the fused path must actually engage
+    assert state[0] == "onedispatch"  # the one-program path must engage
     scan, tables = sharding.finish_sharded_encode(state, cfg)
     sharded = encode_array(pixels, 255, cfg)
     assert sharded == single
@@ -112,8 +122,7 @@ def test_sharded_onedispatch_non_divisible_and_speculative_fetch(
     """Non-divisible MCU rows (alignment-padding shards emit nothing) and
     the second encode at the same geometry (speculative word-slice fetch
     from the _LAST_SHARD_BITS cache) both stay byte-exact."""
-    monkeypatch.setenv("DMMT_PALLAS_INTERPRET", "1")
-    from dmmt_jpeg_encoder_tpu.parallel import sharding
+    from dmmt_jpeg_encoder.parallel import sharding
 
     cfg = EncoderConfig(num_shards=8, scan_backend="device")
     pixels = _px(rng, 44, 28)  # 3 MCU rows over 8 shards
@@ -126,11 +135,11 @@ def test_sharded_onedispatch_non_divisible_and_speculative_fetch(
 
 
 def test_sharded_fused_pack_bit_exact(monkeypatch, rng):
-    """Per-shard packing through the fused one-kernel packer (interpret
-    mode) must still produce the single-chip bytes."""
-    monkeypatch.setenv("DMMT_PALLAS_INTERPRET", "1")
-    from dmmt_jpeg_encoder_tpu import encode_array
-    from dmmt_jpeg_encoder_tpu.config import ChromaSubsamplingPreset, EncoderConfig
+    """Per-shard packing on a 2-shard mesh through the one-dispatch
+    program (the default device path) must produce the single-chip
+    bytes."""
+    from dmmt_jpeg_encoder import encode_array
+    from dmmt_jpeg_encoder.config import ChromaSubsamplingPreset, EncoderConfig
 
     px = rng.integers(0, 256, (40, 32, 3), dtype=np.uint16)
     sharded = encode_array(

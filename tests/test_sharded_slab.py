@@ -1,15 +1,14 @@
 """Sharded SLAB one-dispatch program (parallel/sharding.py,
 start_sharded_encode_slab): B same-geometry images, each row-sharded over
-the mesh AND row-stacked per shard into ONE program — the fixed-slice
-amortization that pushes the projected multi-chip efficiency past 80%
-beyond n=2 (VERDICT r3 #5, parallel/projection.py). Bytes must equal
-per-image single-chip encodes exactly."""
+the mesh AND row-stacked per shard into ONE program, so the per-program
+fixed work is paid once per group. Bytes must equal per-image single-chip
+encodes exactly."""
 
 import numpy as np
 import jax
 import pytest
 
-from dmmt_jpeg_encoder_tpu import (
+from dmmt_jpeg_encoder import (
     ChromaSubsamplingPreset,
     EncoderConfig,
     encode_array,
@@ -34,8 +33,7 @@ def _photo(rng, h, w):
 @needs_8
 @pytest.mark.parametrize("preset", ["P420", "P444"])
 def test_sharded_slab_matches_single_chip(rng, monkeypatch, preset):
-    monkeypatch.setenv("DMMT_PALLAS_INTERPRET", "1")
-    from dmmt_jpeg_encoder_tpu.parallel.sharding import (
+    from dmmt_jpeg_encoder.parallel.sharding import (
         finish_sharded_encode_slab,
         start_sharded_encode_slab,
     )
@@ -65,8 +63,7 @@ def test_encode_batch_sharded_routes_slab_and_matches(rng, monkeypatch):
     """encode_batch with num_shards>1 on a same-geometry batch must take
     the sharded-slab path (dispatch-reached) and return bytes equal to
     per-image single-chip encodes."""
-    monkeypatch.setenv("DMMT_PALLAS_INTERPRET", "1")
-    from dmmt_jpeg_encoder_tpu.parallel import sharding as sh
+    from dmmt_jpeg_encoder.parallel import sharding as sh
 
     calls = []
     orig = sh.start_sharded_encode_slab
@@ -93,9 +90,8 @@ def test_encode_batch_sharded_routes_slab_and_matches(rng, monkeypatch):
 
 @needs_8
 def test_sharded_slab_respects_block_limit(rng, monkeypatch):
-    monkeypatch.setenv("DMMT_PALLAS_INTERPRET", "1")
     monkeypatch.setenv("DMMT_SLAB_MAX_BLOCKS", "10")
-    from dmmt_jpeg_encoder_tpu.parallel.sharding import (
+    from dmmt_jpeg_encoder.parallel.sharding import (
         start_sharded_encode_slab,
     )
 
@@ -110,19 +106,19 @@ def test_sharded_slab_respects_block_limit(rng, monkeypatch):
 
 
 @needs_8
-def test_sharded_auto_b2_demoted(rng, monkeypatch):
-    """Auto picks of exactly B=2 below 1088-row shard slices must ride
-    the per-image sharded path (job 310: B=2 slabs lose to per-image
-    pipelining there); explicit DMMT_SLAB_B=2 stays honored (previous
-    test)."""
-    monkeypatch.setenv("DMMT_PALLAS_INTERPRET", "1")
-    from dmmt_jpeg_encoder_tpu.encoder import encode_batch, encode_array
-    import dmmt_jpeg_encoder_tpu.parallel.sharding as sh
+def test_sharded_auto_pair_rides_slab(rng, monkeypatch):
+    """Two same-geometry images on a 2-shard mesh form one auto B=2
+    sharded slab group, byte-equal to single-device encodes."""
+    from dmmt_jpeg_encoder.encoder import encode_batch, encode_array
+    import dmmt_jpeg_encoder.parallel.sharding as sh
 
-    def boom(*a, **k):  # pragma: no cover - must not be called
-        raise AssertionError("auto B=2 sharded slab dispatched")
-
-    monkeypatch.setattr(sh, "start_sharded_encode_slab", boom)
+    calls = []
+    orig = sh.start_sharded_encode_slab
+    monkeypatch.setattr(
+        sh,
+        "start_sharded_encode_slab",
+        lambda stack, *a, **k: (calls.append(len(stack)), orig(stack, *a, **k))[1],
+    )
     cfg = EncoderConfig(
         chroma_subsampling=ChromaSubsamplingPreset.P420,
         num_shards=2,
@@ -130,6 +126,7 @@ def test_sharded_auto_b2_demoted(rng, monkeypatch):
     )
     imgs = [_photo(rng, 32, 48) for _ in range(2)]
     got = encode_batch(imgs, 255, cfg)
+    assert calls == [2]
     singles = [
         encode_array(
             px, 255,

@@ -8,18 +8,18 @@ import numpy as np
 import jax
 import pytest
 
-from dmmt_jpeg_encoder_tpu import (
+from dmmt_jpeg_encoder import (
     ChromaSubsamplingPreset,
     EncoderConfig,
     encode_array,
 )
-from dmmt_jpeg_encoder_tpu.parallel.sharding import (
+from dmmt_jpeg_encoder.parallel.sharding import (
     _shard_geometry,
     run_sharded_pipeline,
 )
-from dmmt_jpeg_encoder_tpu.pipeline import run_device_pipeline
-from dmmt_jpeg_encoder_tpu.tables import quantization_table_pair
-from dmmt_jpeg_encoder_tpu.config import QuantizationTablePreset
+from dmmt_jpeg_encoder.pipeline import run_device_pipeline
+from dmmt_jpeg_encoder.tables import quantization_table_pair
+from dmmt_jpeg_encoder.config import QuantizationTablePreset
 
 
 needs_8 = pytest.mark.skipif(

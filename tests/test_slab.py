@@ -8,23 +8,22 @@ import jax
 import numpy as np
 import pytest
 
-from dmmt_jpeg_encoder_tpu.config import (
+from dmmt_jpeg_encoder.config import (
     ChromaSubsamplingPreset,
     EncoderConfig,
     QuantizationTablePreset,
 )
-from dmmt_jpeg_encoder_tpu.encoder import encode_array, encode_batch
-from dmmt_jpeg_encoder_tpu.onedispatch import (
+from dmmt_jpeg_encoder.encoder import encode_array, encode_batch
+from dmmt_jpeg_encoder.onedispatch import (
     finish_one_dispatch,
     start_one_dispatch,
     start_one_dispatch_slab,
 )
-from dmmt_jpeg_encoder_tpu.tables import quantization_table_pair
+from dmmt_jpeg_encoder.tables import quantization_table_pair
 
 
 @pytest.fixture(autouse=True)
-def _interpret_and_bounded_compiles(monkeypatch):
-    monkeypatch.setenv("DMMT_PALLAS_INTERPRET", "1")
+def _check_bits_and_bounded_compiles(monkeypatch):
     monkeypatch.setenv("DMMT_CHECK_BITS", "1")
     yield
     jax.clear_caches()  # heavy module: bound live executables per test
@@ -39,10 +38,7 @@ def _images(rng, b, h, w):
 LQ, CQ = quantization_table_pair(QuantizationTablePreset.SPECIFICATION)
 
 
-@pytest.mark.parametrize(
-    "preset",
-    [ChromaSubsamplingPreset.P420, ChromaSubsamplingPreset.P444],
-)
+@pytest.mark.parametrize("preset", list(ChromaSubsamplingPreset))
 def test_slab_bytes_match_per_image(rng, preset):
     cfg = EncoderConfig(chroma_subsampling=preset)
     imgs = _images(rng, 3, 48, 64)
@@ -67,25 +63,6 @@ def test_slab_pads_odd_geometry(rng):
         finish_one_dispatch(s, cfg)
         for s in start_one_dispatch_slab(imgs, 255, cfg, LQ, CQ)
     ]
-    for i in range(2):
-        scan, tables = finish_one_dispatch(
-            start_one_dispatch(imgs[i], 255, cfg, LQ, CQ), cfg
-        )
-        assert (slab[i][0], slab[i][1]) == (scan, tables), i
-
-
-def test_slab_fused1_mode(rng, monkeypatch):
-    """DMMT_P1=fused1 routes the slab through the fused phase-1 kernel on
-    the tall image; DC chains still reset per image."""
-    monkeypatch.setenv("DMMT_P1", "fused1")
-    cfg = EncoderConfig(chroma_subsampling=ChromaSubsamplingPreset.P420)
-    imgs = _images(rng, 2, 48, 64)
-    slab = [
-        finish_one_dispatch(s, cfg)
-        for s in start_one_dispatch_slab(imgs, 255, cfg, LQ, CQ)
-    ]
-    # fused1 is not Arai-bit-exact, so the oracle is the fused1
-    # SINGLE-image path, not the plane path
     for i in range(2):
         scan, tables = finish_one_dispatch(
             start_one_dispatch(imgs[i], 255, cfg, LQ, CQ), cfg
@@ -119,10 +96,10 @@ def test_slab_block_cap(rng, monkeypatch):
 
 
 def test_encode_batch_routes_through_slab(rng, monkeypatch):
-    """DISPATCH-REACHED check (the round-3 mxu gate lesson): encode_batch
-    with device backend + same shapes must actually call the slab
-    dispatcher, not silently fall back to per-image programs."""
-    import dmmt_jpeg_encoder_tpu.encoder as enc_mod
+    """DISPATCH-REACHED check: encode_batch with device backend + same
+    shapes must actually call the slab dispatcher, not silently fall back
+    to per-image programs."""
+    import dmmt_jpeg_encoder.encoder as enc_mod
 
     calls = {"n": 0}
     real = start_one_dispatch_slab
@@ -132,7 +109,7 @@ def test_encode_batch_routes_through_slab(rng, monkeypatch):
         return real(*a, **k)
 
     monkeypatch.setattr(
-        "dmmt_jpeg_encoder_tpu.onedispatch.start_one_dispatch_slab",
+        "dmmt_jpeg_encoder.onedispatch.start_one_dispatch_slab",
         counting,
     )
     monkeypatch.setenv("DMMT_SLAB_B", "2")
@@ -146,7 +123,7 @@ def test_encode_batch_routes_through_slab(rng, monkeypatch):
 
 def test_encode_batch_slab_off_flag(rng, monkeypatch):
     monkeypatch.setenv("DMMT_SLAB", "0")
-    import dmmt_jpeg_encoder_tpu.onedispatch as od
+    import dmmt_jpeg_encoder.onedispatch as od
 
     def boom(*a, **k):  # pragma: no cover - must not be called
         raise AssertionError("slab dispatched with DMMT_SLAB=0")
@@ -160,11 +137,10 @@ def test_encode_batch_slab_off_flag(rng, monkeypatch):
 
 
 def test_encode_batch_rows_cap_skips_slab(rng, monkeypatch):
-    """Measured slab-win region (round 5): DMMT_SLAB_MAX_ROWS bounds
-    rows per IMAGE — images taller than the cap must ride the pipelined
-    per-image path even when the block cap allows stacking (at 2160+
-    rows/image round 4 measured the stack dead)."""
-    import dmmt_jpeg_encoder_tpu.onedispatch as od
+    """DMMT_SLAB_MAX_ROWS bounds rows per IMAGE — images taller than the
+    cap must ride the pipelined per-image path even when the block cap
+    allows stacking."""
+    import dmmt_jpeg_encoder.onedispatch as od
 
     def boom(*a, **k):  # pragma: no cover - must not be called
         raise AssertionError("slab dispatched past the rows cap")
@@ -180,11 +156,8 @@ def test_encode_batch_rows_cap_skips_slab(rng, monkeypatch):
 
 
 def test_encode_batch_blocks_cap_bounds_group_size(rng, monkeypatch):
-    """The compile cap picks B (rows no longer bound depth — round-5
-    jobs 306/307/310 measured deep stacks monotonically better, and a
-    cap-bound auto pick rounds down to a power of two per job 312): 4 x
-    32-row images (36 blocks each) with a 144-block cap must run as one
-    B=4 slab group."""
+    """The compile cap bounds B: 4 x 32-row images (36 blocks each) with a
+    144-block cap must run as one B=4 slab group."""
     calls = {"n": 0, "b": set()}
     real = start_one_dispatch_slab
 
@@ -194,7 +167,7 @@ def test_encode_batch_blocks_cap_bounds_group_size(rng, monkeypatch):
         return real(stack, *a, **k)
 
     monkeypatch.setattr(
-        "dmmt_jpeg_encoder_tpu.onedispatch.start_one_dispatch_slab",
+        "dmmt_jpeg_encoder.onedispatch.start_one_dispatch_slab",
         counting,
     )
     monkeypatch.setenv("DMMT_SLAB_MAX_BLOCKS", "144")
@@ -206,31 +179,34 @@ def test_encode_batch_blocks_cap_bounds_group_size(rng, monkeypatch):
     assert batched == singles
 
 
-def test_encode_batch_auto_b2_demoted_below_1088(rng, monkeypatch):
-    """Job 310: B=2 slabs of sub-1088-row images measured SLOWER than
-    the pipelined per-image path (15.9 vs 12.0 ms at 272 rows) — an
-    auto pick of exactly 2 must fall back to per-image. Explicit
-    DMMT_SLAB_B=2 stays honored (covered by the routing test above)."""
-    import dmmt_jpeg_encoder_tpu.onedispatch as od
+def test_encode_batch_auto_pair_rides_slab(rng, monkeypatch):
+    """Two small same-geometry images form one auto B=2 slab group."""
+    calls = {"b": []}
+    real = start_one_dispatch_slab
 
-    def boom(*a, **k):  # pragma: no cover - must not be called
-        raise AssertionError("auto B=2 slab dispatched below 1088 rows")
+    def counting(stack, *a, **k):
+        calls["b"].append(int(stack.shape[0]))
+        return real(stack, *a, **k)
 
-    monkeypatch.setattr(od, "start_one_dispatch_slab", boom)
+    monkeypatch.setattr(
+        "dmmt_jpeg_encoder.onedispatch.start_one_dispatch_slab",
+        counting,
+    )
     imgs = [rng.integers(0, 256, (32, 48, 3), dtype=np.uint8) for _ in range(2)]
     cfg = EncoderConfig(scan_backend="device")
     batched = encode_batch(imgs, 255, cfg)
+    assert calls["b"] == [2]
     singles = [encode_array(px, 255, cfg) for px in imgs]
     assert batched == singles
 
 
 def test_encode_batch_auto_depth_clamps_at_64(rng, monkeypatch):
-    """Auto slab depth clamps at the deepest MEASURED stack (B=64, job
-    310): 70 tiny same-geometry images must be handed to the slab path
-    with B=64, not B=70 (unmeasured win, linear compile growth). The
-    slab path itself is spied out — group-splitting and byte equality
-    are covered by the dispatch-level tests above at smaller depths."""
-    import dmmt_jpeg_encoder_tpu.encoder as enc_mod
+    """Auto slab depth clamps at SLAB_MAX_DEPTH (64): 70 tiny
+    same-geometry images must be handed to the slab path with B=64, not
+    B=70 (program size grows linearly with depth). The slab path itself
+    is spied out — group-splitting and byte equality are covered by the
+    dispatch-level tests above at smaller depths."""
+    import dmmt_jpeg_encoder.encoder as enc_mod
 
     picks = []
 
@@ -261,11 +237,9 @@ def test_encode_batch_upload_depth_paths(rng, monkeypatch):
         assert encode_batch(imgs, 255, cfg) == singles, depth
 
 
-def test_encode_batch_trailing_pair_rides_per_image(rng, monkeypatch):
-    """A trailing group of exactly 2 small images after pow2 grouping
-    rides per-image dispatches (job 310: B=2 slabs lose below 1088
-    rows): 6 x 32-row images with a 144-block cap -> one B=4 slab group
-    + two per-image programs, never a B=2 slab."""
+def test_encode_batch_trailing_pair_rides_slab(rng, monkeypatch):
+    """6 x 32-row images with a 144-block cap -> a B=4 slab group and a
+    trailing B=2 slab group; bytes equal per-image encodes."""
     calls = {"b": []}
     real = start_one_dispatch_slab
 
@@ -274,13 +248,13 @@ def test_encode_batch_trailing_pair_rides_per_image(rng, monkeypatch):
         return real(stack, *a, **k)
 
     monkeypatch.setattr(
-        "dmmt_jpeg_encoder_tpu.onedispatch.start_one_dispatch_slab",
+        "dmmt_jpeg_encoder.onedispatch.start_one_dispatch_slab",
         counting,
     )
     monkeypatch.setenv("DMMT_SLAB_MAX_BLOCKS", "144")
     imgs = [rng.integers(0, 256, (32, 48, 3), dtype=np.uint8) for _ in range(6)]
     cfg = EncoderConfig(scan_backend="device")
     batched = encode_batch(imgs, 255, cfg)
-    assert calls["b"] == [4]
+    assert calls["b"] == [4, 2]
     singles = [encode_array(px, 255, cfg) for px in imgs]
     assert batched == singles

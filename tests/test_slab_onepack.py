@@ -1,134 +1,10 @@
-"""One-pack-per-slab: fused_pack_words_slab packs B independent streams
-in ONE kernel dispatch, bit-identical per image to standalone
-fused_pack_words runs (VERDICT r4 #1).
-
-Covers: direct kernel equality at B in {2, 3, 8} (random content, with
-and without per-block validity masks), slab-program byte equality
-through encode_batch, the legacy-loop knob (DMMT_SLAB_ONEPACK=0), and
-DISPATCH-REACHED guards (the round-3 gate-bug lesson: output equality
-alone cannot distinguish which path ran)."""
-
-import os
+"""Slab batching details: the slab program's per-image pack tail and the
+reused host stack buffers. Bytes always equal per-image encodes."""
 
 import numpy as np
-import pytest
 
-jax = pytest.importorskip("jax")
-import jax.numpy as jnp  # noqa: E402
-
-from dmmt_jpeg_encoder_tpu.bitstream.device_pack import _interleave_scan
-from dmmt_jpeg_encoder_tpu.bitstream.fused_pack import (
-    fused_pack_capacity,
-    fused_pack_words,
-    fused_pack_words_slab,
-)
-from dmmt_jpeg_encoder_tpu.config import EncoderConfig
-from dmmt_jpeg_encoder_tpu.encoder import encode_array, encode_batch
-from dmmt_jpeg_encoder_tpu.huffman.device_tables import (
-    device_code_tables_batched,
-    device_sweep_tables,
-    pad_dc_histogram,
-)
-from dmmt_jpeg_encoder_tpu.entropy.categorize import symbol_histograms
-from dmmt_jpeg_encoder_tpu.onedispatch import K_AC_CAP, K_DC_CAP
-
-
-def _random_scan(rng, n_mcu, lpm=4, peak=40):
-    """Plausible quantized zigzag blocks in scan-interleave order."""
-    n_luma, n_chroma = n_mcu * lpm, n_mcu
-    def blocks(n):
-        b = np.zeros((n, 64), np.int32)
-        b[:, 0] = rng.integers(-peak, peak, n)
-        nnz = rng.integers(0, 14, n)
-        for i in range(n):
-            pos = rng.choice(np.arange(1, 64), size=nnz[i], replace=False)
-            b[i, pos] = rng.integers(-15, 16, nnz[i])
-        return b
-    luma = blocks(n_luma)
-    cb = blocks(n_chroma)
-    cr = blocks(n_chroma)
-    return luma, cb, cr, n_chroma
-
-
-def _tables_for(luma, cb, cr):
-    l_dc, l_ac = symbol_histograms(jnp.asarray(luma))
-    c_dc, c_ac = symbol_histograms(jnp.asarray(np.concatenate([cb, cr])))
-    t_all = device_code_tables_batched(
-        jnp.stack([
-            pad_dc_histogram(l_dc), l_ac.astype(jnp.int32),
-            pad_dc_histogram(c_dc), c_ac.astype(jnp.int32),
-        ])
-    )
-    return tuple({k: v[i] for k, v in t_all.items()} for i in range(4))
-
-
-def _sweeps_for(t4):
-    t_ldc, t_lac, t_cdc, t_cac = t4
-    dc_s, dc_la, dc_ca, k_dc = device_sweep_tables(t_ldc, t_cdc, K_DC_CAP)
-    ac_s, ac_la, ac_ca, k_ac = device_sweep_tables(t_lac, t_cac, K_AC_CAP)
-    l_ent = (t_lac["codes_flat"] << 8) | t_lac["lens_flat"]
-    c_ent = (t_cac["codes_flat"] << 8) | t_cac["lens_flat"]
-    misc = jnp.stack([l_ent[0xF0], c_ent[0xF0], l_ent[0x00], c_ent[0x00]])
-    return (dc_s, dc_la, dc_ca, ac_s, ac_la, ac_ca, misc), (k_dc, k_ac)
-
-
-@pytest.mark.parametrize("b,n_mcu", [(2, 40), (3, 17), (8, 9)])
-def test_slab_pack_matches_per_image(monkeypatch, b, n_mcu, with_valid=False):
-    monkeypatch.setenv("DMMT_PALLAS_INTERPRET", "1")
-    rng = np.random.default_rng(1234 + b)
-    lpm, stride = 4, 6
-    scans, sweeps_stacked, kds, singles = [], None, [], []
-    per_image = []
-    n_blocks = n_mcu * (lpm + 2)
-    n_words = fused_pack_capacity(n_blocks * 64 + 2)
-    valid = None
-    if with_valid:
-        valid = np.ones((b, n_blocks), np.int32)
-        # mask the final MCU's blocks of every image (alignment padding)
-        valid[:, -stride:] = 0
-    parts = []
-    for i in range(b):
-        luma, cb, cr, n_chroma = _random_scan(rng, n_mcu, lpm)
-        if with_valid:
-            luma[-lpm * 1:] = 0
-            cb[-1:] = 0
-            cr[-1:] = 0
-        t4 = _tables_for(luma, cb, cr)
-        sweep, (k_dc, k_ac) = _sweeps_for(t4)
-        scan = _interleave_scan(
-            jnp.asarray(luma), jnp.asarray(cb), jnp.asarray(cr),
-            n_chroma, lpm,
-        )
-        w, nb = fused_pack_words(
-            scan, stride, lpm, sweep, n_words,
-            k_dyn=jnp.stack([k_dc, k_ac]),
-            valid=jnp.asarray(valid[i]) if with_valid else None,
-        )
-        per_image.append((np.asarray(w), int(nb)))
-        parts.append((scan, sweep, k_dc, k_ac))
-
-    stacked_sweep = tuple(
-        jnp.stack([p[1][j] for p in parts]) for j in range(7)
-    )
-    words, bits = fused_pack_words_slab(
-        jnp.stack([p[0] for p in parts]), stride, lpm, stacked_sweep,
-        n_words,
-        k_dyn=jnp.stack([jnp.stack([p[2], p[3]]) for p in parts]),
-        valid=jnp.asarray(valid) if with_valid else None,
-    )
-    words = np.asarray(words)
-    bits = np.asarray(bits)
-    for i in range(b):
-        w_ref, nb_ref = per_image[i]
-        assert int(bits[i]) == nb_ref, f"image {i} bit count"
-        nw = (nb_ref + 31) // 32
-        np.testing.assert_array_equal(
-            words[i, :nw], w_ref[:nw], err_msg=f"image {i} words"
-        )
-
-
-def test_slab_pack_matches_per_image_with_valid(monkeypatch):
-    test_slab_pack_matches_per_image(monkeypatch, 3, 12, with_valid=True)
+from dmmt_jpeg_encoder.config import EncoderConfig
+from dmmt_jpeg_encoder.encoder import encode_array, encode_batch
 
 
 def _tiny_images(b, h=24, w=38, seed=7):
@@ -137,67 +13,30 @@ def _tiny_images(b, h=24, w=38, seed=7):
     return [np.roll(base, 5 * i, axis=0) for i in range(b)]
 
 
-@pytest.mark.parametrize("b", [2, 4])
-def test_encode_batch_slab_onepack_bytes(monkeypatch, b):
-    """encode_batch slab groups produce bytes equal to per-image
-    encode_array with the one-pack path active, and the one-pack kernel
-    is actually DISPATCHED (not silently skipped)."""
-    monkeypatch.setenv("DMMT_PALLAS_INTERPRET", "1")
-    monkeypatch.setenv("DMMT_SLAB_B", str(b))
+def test_encode_batch_slab_legacy_loop_bytes(monkeypatch):
+    """The slab program packs every image's stream with the shared
+    one-dispatch tail (vmapped over the images): encode_batch slab bytes
+    equal per-image encode_array, and the shared tail is what the slab
+    program traces."""
+    monkeypatch.setenv("DMMT_SLAB_B", "2")
     monkeypatch.setenv("DMMT_SLAB_MAX_ROWS", "100000")
-    monkeypatch.setenv("DMMT_SLAB_ONEPACK", "1")
-    import dmmt_jpeg_encoder_tpu.onedispatch as od
+    import dmmt_jpeg_encoder.onedispatch as od
 
-    calls = {"slab": 0, "per_image": 0}
-    real_slab = od._tables_to_pack_slab
+    calls = {"per_image": 0}
     real_single = od._tables_to_pack
-
-    def count_slab(*a, **k):
-        calls["slab"] += 1
-        return real_slab(*a, **k)
 
     def count_single(*a, **k):
         calls["per_image"] += 1
         return real_single(*a, **k)
 
-    monkeypatch.setattr(od, "_tables_to_pack_slab", count_slab)
     monkeypatch.setattr(od, "_tables_to_pack", count_single)
-    od._compiled_onedispatch_slab.cache_clear()
-
-    images = _tiny_images(b)
-    config = EncoderConfig(scan_backend="device")
-    got = encode_batch(images, 255, config)
-    want = [encode_array(px, 255, config) for px in images]
-    assert got == want
-    assert calls["slab"] == 1, "slab group must take the one-pack path"
-    od._compiled_onedispatch_slab.cache_clear()
-
-
-def test_encode_batch_slab_legacy_loop_bytes(monkeypatch):
-    """The per-image pack loop (the DEFAULT since the round-5 A/B
-    measured it faster) produces identical bytes and never dispatches
-    the one-pack path."""
-    monkeypatch.setenv("DMMT_PALLAS_INTERPRET", "1")
-    monkeypatch.setenv("DMMT_SLAB_B", "2")
-    monkeypatch.setenv("DMMT_SLAB_MAX_ROWS", "100000")
-    monkeypatch.setenv("DMMT_SLAB_ONEPACK", "0")
-    import dmmt_jpeg_encoder_tpu.onedispatch as od
-
-    calls = {"slab": 0}
-    real_slab = od._tables_to_pack_slab
-
-    def count_slab(*a, **k):
-        calls["slab"] += 1
-        return real_slab(*a, **k)
-
-    monkeypatch.setattr(od, "_tables_to_pack_slab", count_slab)
     od._compiled_onedispatch_slab.cache_clear()
     images = _tiny_images(2)
     config = EncoderConfig(scan_backend="device")
     got = encode_batch(images, 255, config)
     want = [encode_array(px, 255, config) for px in images]
     assert got == want
-    assert calls["slab"] == 0, "legacy knob must bypass the one-pack path"
+    assert calls["per_image"] >= 1, "slab program must trace the shared tail"
     od._compiled_onedispatch_slab.cache_clear()
 
 
@@ -206,7 +45,6 @@ def test_slab_stack_buffer_not_contaminated_across_sizes(monkeypatch):
     [:h, :w], so two batches whose DIFFERENT true sizes share a padded
     size must not leak the first batch's pixels into the second's black
     pad region (the buffer key must include the true size)."""
-    monkeypatch.setenv("DMMT_PALLAS_INTERPRET", "1")
     monkeypatch.setenv("DMMT_SLAB_B", "2")
     monkeypatch.setenv("DMMT_SLAB_MAX_ROWS", "100000")
     rng = np.random.default_rng(21)
